@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Analysis reporting — TPU-native equivalent of the reference's plotly
+"""Analysis reporting — the planner's equivalent of the reference's plotly
 notebooks (/root/reference/analysis/data_analysis.ipynb and
 benchmark_analysis.ipynb), consuming the same text-file formats the
 examples write.
@@ -21,7 +21,7 @@ import json
 import os
 import sys
 
-sys.path.insert(0, ".")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
 def main():
@@ -33,9 +33,9 @@ def main():
                     default=[0.8, 0.8, 0.6, 0.9, 0.1])
     args = ap.parse_args()
 
-    import jax
+    from mpc_motion_planner_tpu.config import setup
 
-    jax.config.update("jax_platforms", "cpu")
+    setup("cpu")
 
     from mpc_motion_planner_tpu.bench import plots
     from mpc_motion_planner_tpu.bench.analysis import (

@@ -32,11 +32,11 @@ def main():
     ap.add_argument("--x64", action="store_true", default=True)
     args = ap.parse_args()
 
+    from mpc_motion_planner_tpu.config import setup
+
+    setup("cpu", x64=True)
+
     import jax
-
-    jax.config.update("jax_platforms", "cpu")
-    jax.config.update("jax_enable_x64", True)
-
     import jax.numpy as jnp
     import numpy as np
 

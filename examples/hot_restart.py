@@ -10,24 +10,24 @@ time-to-go.
 
 Usage:
     python examples/hot_restart.py [--steps 6] [--batch 64]
-        [--advance 0.1] [--platform cpu|tpu] [--x64]
+        [--advance 0.1] [--platform gpu|cpu] [--x64]
 
 Prints a per-step table (QP iterations, convergence, violation, t_f) for
 the hot-restart chain and, for comparison, the same receding chain with a
 fresh OTG warm start at every step.
 
-Note the measured scope (experiments/r05_results.jsonl `hot` phase):
-re-seeding helps when the target is UNCHANGED (this receding pattern);
+Note the measured scope (KERNELS.md, hot restarts): re-seeding helps when the target is UNCHANGED (this receding pattern);
 across a changed target the old trajectory has the wrong shape and an OTG
 re-plan is the better seed — which is why the batch benchmark keeps
 per-solve OTG warm starts.
 """
 
 import argparse
+import os
 import sys
 import time
 
-sys.path.insert(0, ".")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
 def main():
@@ -36,29 +36,25 @@ def main():
     ap.add_argument("--batch", type=int, default=64)
     ap.add_argument("--advance", type=float, default=0.1,
                     help="fraction of the remaining horizon to advance per step")
-    ap.add_argument("--platform", default=None, choices=[None, "cpu", "tpu"])
+    ap.add_argument("--platform", default=None, choices=[None, "gpu", "cpu"])
     ap.add_argument("--x64", action="store_true")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
 
-    import jax
+    from mpc_motion_planner_tpu.config import setup, shipping_qp_settings
 
-    if args.platform:
-        jax.config.update("jax_platforms", args.platform)
-    if args.x64:
-        jax.config.update("jax_enable_x64", True)
+    platform = setup(args.platform, args.x64)
+
+    import jax
     import jax.numpy as jnp
     import numpy as np
 
     from mpc_motion_planner_tpu.bench.harness import sample_benchmark_targets
-    from mpc_motion_planner_tpu.ops.qp import QPSettings
     from mpc_motion_planner_tpu.planner import Margins, MotionPlanner
 
-    backend = "structured_pallas" if jax.default_backend() == "tpu" else "structured"
     planner = MotionPlanner(
         margins=Margins(0.8, 0.8, 0.6, 0.9, 0.1),
-        qp_settings=QPSettings(backend=backend, kkt_refine=0,
-                               rho_update_every=0),
+        qp_settings=shipping_qp_settings(platform),
     )
     nq = planner.ocp.nq
     key = jax.random.PRNGKey(args.seed)

@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Single random trajectory demo — TPU-native equivalent of
+"""Single random trajectory demo — the batched planner's equivalent of
 /root/reference/examples/offline_trajectory.cpp.
 
 Samples a random feasible start and goal (margins 0.9/0.9/0.5/0.9/0.1,
@@ -10,25 +10,25 @@ reference's 29-column format (target line + 201-point warm-start block +
 """
 
 import argparse
+import os
 import sys
 
-sys.path.insert(0, ".")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
-def main():
+def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--platform", default=None, choices=[None, "cpu", "tpu"])
+    ap.add_argument("--platform", default=None, choices=[None, "gpu", "cpu"])
     ap.add_argument("--x64", action="store_true")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default="analysis/optimal_solution.txt")
-    args = ap.parse_args()
+    args = ap.parse_args(argv)
+
+    from mpc_motion_planner_tpu.config import setup
+
+    setup(args.platform, args.x64)
 
     import jax
-
-    if args.platform:
-        jax.config.update("jax_platforms", args.platform)
-    if args.x64:
-        jax.config.update("jax_enable_x64", True)
     import jax.numpy as jnp
     import numpy as np
 
@@ -66,22 +66,22 @@ def main():
     print(np.asarray(q1))
     print(np.asarray(v1))
 
-    sol = planner.solve(current, target)
+    n = 200
+
+    @jax.jit
+    def plan(current, target):
+        sol = planner.solve(current, target)
+        return sol, planner.sample_warm_start(sol.warm_start, n), sol.sample(n)
+
+    sol, rk, mpc = plan(current, target)
     print("final time:", float(sol.final_time[0]), "s  (warm start:",
           float(sol.warm_start.duration[0]), "s)")
     print("constraint violation:", float(sol.violation[0]))
 
-    n = 200
-    t_rk, q_rk, qd_rk, a_rk, tau_rk = planner.sample_warm_start(sol.warm_start, n)
-    t_m, q_m, qd_m, a_m, tau_m = sol.sample(n)
     unbatch = lambda tup: tuple(np.asarray(x[0]) for x in tup)
-    write_optimal_solution(
-        args.out,
-        np.asarray(target[0]),
-        unbatch((t_rk, q_rk, qd_rk, a_rk, tau_rk)),
-        unbatch((t_m, q_m, qd_m, a_m, tau_m)),
-    )
+    write_optimal_solution(args.out, np.asarray(target[0]), unbatch(rk), unbatch(mpc))
     print("wrote", args.out)
+    return sol
 
 
 if __name__ == "__main__":

@@ -10,9 +10,8 @@ for a few settings variants, to answer:
 * where do the unconverged QPs sit (primal vs dual residual)?
 * does adaptive rho / kkt refinement / a different base rho fix them?
 
-Runs on CPU (f32, matching the TPU kernel's precision) regardless of the
-available accelerator — the TPU is a single exclusive device reserved for
-the serialized bench runs.
+Runs on CPU in f32 (the shipping precision) regardless of the available
+accelerator: it reports iteration counts and residuals, not times.
 
 Usage: python experiments/conv_diag.py [batch] [variant ...]
 """

@@ -1,6 +1,6 @@
-"""mpc_motion_planner_tpu — TPU-native minimum-time MPC motion planning.
+"""mpc_motion_planner_tpu — batched minimum-time MPC motion planning.
 
-A brand-new JAX/XLA/Pallas framework with the capabilities of the C++
+A brand-new JAX/XLA framework with the capabilities of the C++
 reference ``AlbericDeLajarte/mpc_motion_planner``: minimum-time joint-space
 trajectory optimization for 7-DoF arms under position/velocity/acceleration
 box constraints, RNEA torque limits and an end-effector height constraint,

@@ -17,7 +17,7 @@ Reproduces the semantics of /root/reference/examples/benchmark.cpp:
   target state) so the reference's benchmark_analysis notebook semantics
   apply unchanged.
 
-The TPU-first difference: the 1000-iteration serial loop becomes one
+The batched difference: the 1000-iteration serial loop becomes one
 batched solve — sampling the chain is sequential-free (all targets are
 drawn first; starts are the shifted targets), so every solve runs
 simultaneously.
@@ -27,17 +27,20 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
+from functools import partial
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 
+from ..config import full_precision
 from ..ops import kinematics
 from ..planner import MotionPlanner, Solution
 
 N_CHECK_POINTS = 200  # reference nPoints (benchmark.cpp:58)
 
 
+@full_precision
 def sample_benchmark_targets(planner: MotionPlanner, key, num: int):
     """Batched target (position, velocity) sampling per benchmark.cpp:19-42."""
     k_q, k_v = jax.random.split(key)
@@ -79,9 +82,12 @@ def sample_benchmark_targets(planner: MotionPlanner, key, num: int):
     return q, qd
 
 
+@partial(jax.jit, static_argnums=(0, 2))
+@full_precision
 def chain_states(planner: MotionPlanner, key, num: int):
     """Build the benchmark's receding chain: start_i = target_{i-1};
-    start_0 is the mid-range default configuration (motionPlanner.cpp:5-8)."""
+    start_0 is the mid-range default configuration (motionPlanner.cpp:5-8).
+    Jitted as one program (the planner and `num` are static)."""
     q_t, qd_t = sample_benchmark_targets(planner, key, num)
     default_q = (planner.limits.max_position + planner.limits.min_position) / 2.0
     q_s = jnp.concatenate([default_q[None, :], q_t[:-1]], axis=0)
@@ -102,6 +108,7 @@ class TrajectoryChecks:
     collision: jax.Array
 
 
+@full_precision
 def validate_trajectory(planner: MotionPlanner, time, q, qd, qdd):
     """Independent re-simulation checks (benchmark.cpp:82-160).
 
@@ -139,6 +146,7 @@ def _traj_extrema(time, q, qd, qdd, tau):
     return jnp.min(rows, axis=1), jnp.max(rows, axis=1)
 
 
+@full_precision
 def benchmark_records(
     planner: MotionPlanner,
     solution: Solution,

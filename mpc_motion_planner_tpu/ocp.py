@@ -1,6 +1,6 @@
 """Minimum-time OCP transcription to a fixed-shape NLP.
 
-TPU-native re-design of the reference's ``minTime_ocp``
+Batched re-design of the reference's ``minTime_ocp``
 (/root/reference/mpc_solver/robot_ocp.hpp) + polyMPC's ``ContinuousOCP``
 transcription: NX=14 (q, qdot), NU=7 (qddot), NP=1 (final time t_f), NG=8
 (7 RNEA torques + tool height) on a 19-node Chebyshev–Gauss–Lobatto spline
@@ -40,9 +40,9 @@ jacfwd.
 d tau/d p: the reference fills a nonzero column (robot_ocp.hpp:124,138:
 dtau/dv qdot + dtau/da qddot) even though tau does not depend on p in
 this formulation; this implementation defaults to the mathematically
-correct zero. MEASURED immaterial (r05 A/B on the chained workload,
+correct zero. MEASURED immaterial (A/B on the chained workload,
 B=128, dense backend, `TranscribedOCP.tau_p_column` replaying the
-reference fill — experiments/r05_results.jsonl `taup`): identical
+reference fill; KERNELS.md): identical
 convergence (0.9883 both arms), violation (p50 0.423, p90 5.74 both),
 terminal error and line-search step sizes; the iterates differ by
 max-norm p50 0.018 (different paths to equivalent-quality solutions).
@@ -78,15 +78,6 @@ class TranscribedOCP:
     eq_diff_pattern: jax.Array  # E_D: differentiation-matrix block
     eq_dyn_pattern: jax.Array  # C_dyn: -(df/dx, df/du) coupling, scaled by p
 
-    # Fused-constraints routing: "auto" (Pallas kernel on TPU, XLA vmap
-    # elsewhere), "on", "off". A STATIC field so it participates in jit
-    # cache keys — flipping it on a planner/ocp instance re-traces, unlike
-    # the round-4 env var read at trace time (ADVICE r04). The env var
-    # MPC_TPU_FUSED_CONSTRAINTS is still honored, but only ONCE, as the
-    # default at make_ocp() time.
-    fused_constraints: str = dataclasses.field(
-        default="auto", metadata={"static": True}
-    )
     # A/B flag for the reference's d tau/d p linearization column
     # (robot_ocp.hpp:124,138): the reference fills the torque rows' p
     # column with dtau/dv*qdot + dtau/da*qddot even though tau does not
@@ -95,8 +86,7 @@ class TranscribedOCP:
     # correct zero. Supported by the DENSE ('xla') backend only — the
     # structured operators hard-code the correct zero column; the flag
     # exists to MEASURE whether the reference's wrong-but-used column
-    # changes its SQP steps materially (VERDICT r04 #5; result recorded in
-    # KERNELS.md: experiments/r05_results.jsonl `taup` phase).
+    # changes its SQP steps materially (result recorded in KERNELS.md).
     tau_p_column: bool = dataclasses.field(
         default=False, metadata={"static": True}
     )
@@ -176,8 +166,7 @@ class TranscribedOCP:
         c(z + a d) = c0 + a c1 + a^2 c2 EXACTLY for every step size a —
         the merit line search evaluates all its candidates from these
         three (num_eq,) vectors instead of re-running the full defect
-        chain at line_search_max_iter x batch (the r04 trace's second-
-        largest non-ADMM cost). Returns (c0, c1, c2).
+        chain at line_search_max_iter x batch. Returns (c0, c1, c2).
         """
         X, U, p = self.unpack(z)
         dX_d, dU_d, dp = self.unpack(d)
@@ -202,47 +191,15 @@ class TranscribedOCP:
         g = jax.vmap(self.node_constraints)(X, U)  # (nodes, ng)
         return g.reshape(-1)
 
-    # ---- batched fast paths (fused Pallas constraints kernel on TPU) ----
-
-    def _use_fused_constraints(self) -> bool:
-        """Route batched constraint evaluation through the lane-major
-        Pallas kernel (ops/pallas/constraints_kernel.py). Decided by the
-        STATIC `fused_constraints` field (part of every jit cache key):
-        "auto" = on when the default backend is TPU (where the XLA path is
-        per-op overhead-bound, ~59 ms/stage at B=1024 — r04 stage
-        breakdown), off elsewhere (interpret mode would be slower than
-        XLA). Hardware-validated round 4: the fused path took the headline
-        bench from 3652 to 6666 solves/s at identical conv/violation
-        (experiments/r04_results.jsonl, KERNELS.md)."""
-        if self.fused_constraints == "off":
-            return False
-        if self.fused_constraints == "on":
-            return True
-        return jax.default_backend() == "tpu"
+    # ---- batched evaluation ----
 
     def ineq_residual_batch(self, z):
         """(B, num_var) -> (B, num_ineq): batched node-major g values."""
-        if self._use_fused_constraints():
-            from .ops.pallas.constraints_kernel import fused_node_constraints
-
-            X, U, _ = self.unpack(z)
-            g = fused_node_constraints(self, X, U, with_jac=False)
-            return g.reshape(z.shape[0], -1).astype(z.dtype)
         return jax.vmap(self.ineq_residual)(z)
 
     def linearize_constraints_batch(self, z):
         """(B, num_var) -> (g (B, num_ineq), J (B, nodes, ng, nx+nu)):
-        batched constraint values + exact per-node Jacobians in one pass
-        (one fused kernel launch on TPU)."""
-        if self._use_fused_constraints():
-            from .ops.pallas.constraints_kernel import fused_node_constraints
-
-            X, U, _ = self.unpack(z)
-            g, J = fused_node_constraints(self, X, U, with_jac=True)
-            return (
-                g.reshape(z.shape[0], -1).astype(z.dtype),
-                J.astype(z.dtype),
-            )
+        batched constraint values + exact per-node Jacobians."""
         return (
             jax.vmap(self.ineq_residual)(z),
             jax.vmap(self.node_constraint_jacobians)(z),
@@ -251,8 +208,8 @@ class TranscribedOCP:
     def node_constraint_jacobians(self, z):
         """Exact per-node Jacobians dg/d[x, u], shape (nodes, ng, nx+nu).
 
-        jacfwd through RNEA+FK — the TPU-native equivalent of the analytic
-        Pinocchio partial injection at robot_ocp.hpp:98-163.
+        jacfwd through RNEA+FK — the counterpart of the analytic Pinocchio
+        partial injection at robot_ocp.hpp:98-163.
         """
         X, U, _ = self.unpack(z)
         nx = self.nx
@@ -353,7 +310,6 @@ def make_ocp(
     order: int = 3,
     num_segments: int = 6,
     dtype=None,
-    fused_constraints: str = None,
     tau_p_column: bool = False,
 ) -> TranscribedOCP:
     coll = make_collocation(order, num_segments, dtype=dtype)
@@ -363,23 +319,12 @@ def make_ocp(
         model = model.astype(dtype)
         E = E.astype(dtype)
         C = C.astype(dtype)
-    if fused_constraints is None:
-        # env override is read ONCE here (construction time), never at
-        # trace time — flipping the env after construction has no effect,
-        # flipping the field (a static pytree field) re-traces correctly.
-        import os
-
-        fused_constraints = os.environ.get("MPC_TPU_FUSED_CONSTRAINTS", "auto")
-    if fused_constraints not in ("auto", "on", "off"):
-        raise ValueError(f"fused_constraints must be auto/on/off, got "
-                         f"{fused_constraints!r}")
     return TranscribedOCP(
         model=model,
         coll=coll,
         tool_frame=model.frame(tool_frame_name),
         eq_diff_pattern=jnp.asarray(E),
         eq_dyn_pattern=jnp.asarray(C),
-        fused_constraints=fused_constraints,
         tau_p_column=tau_p_column,
     )
 

@@ -1,6 +1,6 @@
 """Chebyshev–Gauss–Lobatto pseudospectral collocation on a segmented spline.
 
-TPU-native replacement for polyMPC's ``Chebyshev<POLY_ORDER, GAUSS_LOBATTO>``
+Batched replacement for polyMPC's ``Chebyshev<POLY_ORDER, GAUSS_LOBATTO>``
 + ``Spline<Polynomial, NUM_SEG>`` transcription (/root/reference/mpc_solver/
 robot_ocp.hpp:31-36): order-3 polynomials on 6 segments over normalized time
 tau in [0, 1] share segment-boundary nodes, giving 6*3+1 = 19 collocation

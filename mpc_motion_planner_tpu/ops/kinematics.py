@@ -1,6 +1,6 @@
 """Forward kinematics, frame Jacobians, task-space velocity maps and IK.
 
-TPU-native replacement for the kinematics slice of Pinocchio used by the
+Batched replacement for the kinematics slice of Pinocchio used by the
 reference (``forwardKinematics``, ``updateFramePlacement``,
 ``computeFrameJacobian``, damped-LS IK — /root/reference/robot_utils/
 pandaWrapper.cpp). Everything is differentiable, vmappable and shape-static;

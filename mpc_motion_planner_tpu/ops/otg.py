@@ -1,6 +1,6 @@
 """Batched jerk-limited time-optimal online trajectory generation (OTG).
 
-TPU-native replacement for the used slice of Ruckig (/root/reference/
+Batched replacement for the used slice of Ruckig (the reference's
 mpc_solver/motionPlanner.hpp:35-37, motionPlanner.cpp:146-175): per-joint
 time-optimal third-order (jerk-limited) point-to-point profiles with
 velocity/acceleration/jerk bounds, nonzero boundary velocities and

@@ -1,13 +1,13 @@
 """Batched OSQP-style boxADMM quadratic-program solver.
 
-TPU-native replacement for polyMPC's ``boxADMM<VAR_SIZE, NUM_EQ+NUM_INEQ>``
+Batched replacement for polyMPC's ``boxADMM<VAR_SIZE, NUM_EQ+NUM_INEQ>``
 (/root/reference/mpc_solver/motionPlanner.hpp:10-11): ADMM for QPs with both
 general constraint rows  l_c <= A x <= u_c  and separate variable boxes
 l_x <= x <= u_x (identity rows handled implicitly, so the KKT system stays
 n x n). Reference solver budget: max_iter=700, eps_abs=eps_rel=1e-3
 (motionPlanner.cpp:16-19).
 
-TPU-first design decisions:
+Design decisions:
 * Natively batched: every operand carries a leading batch axis; ONE
   ``lax.while_loop`` runs until all batch elements converge or the
   iteration cap is hit. Elements freeze at their own convergence point
@@ -25,7 +25,7 @@ TPU-first design decisions:
   matrix, matching polyMPC's boxADMM which takes an arbitrary convex
   Hessian (motionPlanner.hpp:10-11, hessian_update_impl hook at
   polympc_redef.hpp:124-128). Dense P is supported on the XLA backend
-  only; the pallas/structured backends raise a clear error.
+  only; the structured backend raises a clear error.
 """
 
 from __future__ import annotations
@@ -59,100 +59,24 @@ class QPSettings:
     # unscaled (its `scaling` knob is commented out, motionPlanner.cpp:21);
     # the NLP rows span ~2 orders of magnitude so SOME scaling is
     # load-bearing for convergence within the 700-iteration budget — but
-    # fewer sweeps are measured BETTER on both axes (r05 bracket at
-    # B=2048, experiments/r05_results.jsonl: 2 sweeps 9798 solves/s /
-    # conv 0.9990, 4 -> 9670 / 0.9983, 6 -> 9383 / 0.9941, 10 -> 9336 /
-    # 0.9939, violation unchanged): full equilibration distorts the
-    # effective per-row rho pattern more than it helps conditioning on
-    # this workload. Production default 2 (r05; was 10 through r04).
+    # fewer sweeps converge BETTER on the chained workload at B=2048 (QP
+    # convergence 0.9990 at 2 sweeps, 0.9983 at 4, 0.9941 at 6, 0.9939 at
+    # 10, violation unchanged; KERNELS.md): full equilibration distorts
+    # the effective per-row rho pattern more than it helps conditioning.
     ruiz_iters: int = dataclasses.field(default=2, metadata={"static": True})
     # OSQP-style adaptive rho: per-problem rescale every `rho_update_every`
     # iterations by sqrt(prim/dual residual ratio) (0 disables).
     rho_update_every: int = dataclasses.field(default=100, metadata={"static": True})
     rho_min: float = dataclasses.field(default=1e-6, metadata={"static": True})
     rho_max: float = dataclasses.field(default=1e6, metadata={"static": True})
-    # "xla": batched einsum iterations (portable, supports adaptive rho).
-    # "pallas": fused VMEM-resident TPU kernel over DENSE per-problem
-    # matrices (fixed rho, float32) — round 1's kernel, kept as reference.
-    # "structured": matrix-free applies + banded-arrow KKT factorization
-    # (ops/qp_structured.py) — portable, supports adaptive rho.
-    # "structured_pallas": the structured algorithm fused into a single
-    # VMEM-resident TPU kernel with the batch on the lane axis
-    # (ops/pallas/structured_admm.py; fixed rho, diagonal P, float32) —
-    # the production TPU path.
+    # "xla": dense batched einsum iterations (the plain reference; the
+    # only backend that takes a dense P). "structured": matrix-free
+    # applies + banded-arrow KKT factorization (ops/qp_structured.py) —
+    # the shipping backend on the GPU and the CPU (config.qp_backend).
     backend: str = dataclasses.field(default="xla", metadata={"static": True})
-    # Problems per Pallas kernel program: the G independent matvec chains
-    # are unrolled back-to-back so their MXU ops pipeline. Measured on the
-    # planner workload G=2 gains nothing over G=1 (the loop is MXU
-    # issue-bound, not latency-bound) and at "highest" precision G=2
-    # overflows the ~16 MB VMEM budget, so the default stays 1.
-    pallas_group: int = dataclasses.field(default=1, metadata={"static": True})
-    # MXU scheme for the fused kernel's in-loop matvecs: "highest" (6-pass
-    # f32) is the only scheme validated on the production workload. The
-    # manual bf16-split schemes are EXPERIMENTAL: both "split3" (bf16x3)
-    # and "split4" (bf16x4) pass the small interpret-mode parity tests but
-    # DIVERGE (NaN) on the real planner workload on TPU (see CLAUDE.md) —
-    # the rho_eq_scale-weighted dual updates amplify the lo-split's bf16
-    # rounding (~2^-16 residual even for split4) past what ADMM tolerates.
-    # "split3" is hard-gated (raises; set MPC_TPU_ALLOW_SPLIT3=1 to
-    # experiment); do not enable either in production. "default" (1-pass
-    # bf16) does not converge at all. The KKT factorization always runs at
-    # highest precision regardless.
-    pallas_precision: str = dataclasses.field(
-        default="highest", metadata={"static": True}
-    )
-    # Early-exit chunked dispatch for the fused structured kernel
-    # (backend "structured_pallas" only; ignored when rho_update_every
-    # > 0, which has its own chunk cadence). When > 0, the <=max_iter
-    # ADMM loop dispatches as ceil(max_iter / exit_every) kernel launches
-    # of exit_every iterations, and between launches the batch is
-    # COMPACTED: problems are stable-sorted so still-active ones pack
-    # into the leading 128-lane groups. A grid program whose 128 lanes
-    # are all done exits its in-kernel loop before the first iteration,
-    # so converged problems stop paying for the stragglers' iterations —
-    # at >99% convergence most of the 700-iteration budget is spent on a
-    # handful of structurally-infeasible stragglers that sorting confines
-    # to ONE program. Semantics are identical to a single dispatch when
-    # exit_every is a multiple of check_every (chunk-boundary residual
-    # checks then coincide with scheduled ones); results are
-    # un-permuted before returning. 0 disables (single dispatch).
-    #
-    # MEASURED (v5e, B=1024, r04 sweep): naive uniform chunking LOSES —
-    # exit_every=100 3094 solves/s, =50 2272 vs 3652 at 0 — because every
-    # chunk re-lays-out ~200 MB of permuted operands into lane-major form,
-    # and that costs more than the skipped iterations. The winning shape
-    # is ONE late sort: exit_warmup=300 runs a single 300-iteration chunk
-    # first (93% of problems converge by then, per the measured iteration
-    # distribution), then one compaction packs the stragglers into a
-    # single 128-lane program for the remaining budget.
-    # PRODUCTION DEFAULT (hardware-validated round 4): schedule [300, 400]
-    # — 8020 solves/s vs 6666 without early exit at B=1024 with the fused
-    # constraints path, identical conv/violation. Only affects the
-    # structured_pallas backend at B > 128; exact single-dispatch
-    # semantics hold because both chunk lengths are multiples of
-    # check_every (parity-tested).
-    exit_every: int = dataclasses.field(default=400, metadata={"static": True})
-    # First-chunk length before the first compaction boundary (0 = use
-    # exit_every). Use a multiple of check_every to keep exact
-    # single-dispatch semantics.
-    exit_warmup: int = dataclasses.field(default=300, metadata={"static": True})
-    # Explicit chunk schedule for the early-exit dispatch, e.g.
-    # "150,150,400": comma-separated chunk lengths that must sum to
-    # max_iter, each a multiple of check_every. Overrides
-    # exit_warmup/exit_every when non-empty. Exists because the optimal
-    # shape is workload-measured, not derived — r04 found [300, 400] best;
-    # r05 sweeps denser schedules ([150,150,400]) against the ~4 ms
-    # re-layout cost of each extra boundary.
-    exit_schedule: str = dataclasses.field(default="", metadata={"static": True})
     # Straggler-rescue budget: EXTRA ADMM iterations beyond max_iter,
     # effectively granted only to problems still unconverged near the
-    # scheduled budget's end. On the structured_pallas early-exit path it
-    # EXTENDS the final post-compaction chunk — the stragglers are packed
-    # into the leading lane group(s), every all-done program exits before
-    # its first iteration, and no extra dispatch/re-layout is paid
-    # (measured r05 at B=2048: appending a separate rescue dispatch cost
-    # 19% throughput for the same conv gain; the folded form costs ~2%).
-    # On the XLA structured path it extends the masked while_loop cap
+    # scheduled budget's end. It extends the masked while_loop cap
     # (converged problems are frozen — identical results, linear extra
     # wall time). The reference has no equivalent (fixed 700,
     # motionPlanner.cpp:16-19); this exists because the residual ~0.6%
@@ -164,7 +88,7 @@ class QPSettings:
     # KKT factorization scheme for the explicit M^-1: "lu" (jnp.linalg.inv)
     # or "cholesky" (M is SPD by construction: diag(P) + sigma I + rho_x I
     # + A^T diag(rho_c) A with all weights > 0) — Cholesky + two triangular
-    # solves + a GEMM, which keeps more of the work on the MXU than LU's
+    # solves + a GEMM, which keeps more of the work in matrix products than LU's
     # pivoted panel factorization.
     kkt_factor: str = dataclasses.field(default="lu", metadata={"static": True})
     # Iterative-refinement steps on each x-update's KKT solve:
@@ -184,11 +108,7 @@ class QPSolution:
     y_constraints: jax.Array  # (B, m) duals of the A-rows
     y_box: jax.Array  # (B, n) duals of the variable box
     converged: jax.Array  # (B,) bool
-    # Iteration of convergence, or the cap for unconverged problems — with
-    # one backend nuance: the pallas path freezes diverging problems early
-    # (done=2, reported unconverged) and stops counting at the freeze
-    # point, so a diverged problem reports its freeze iteration instead of
-    # max_iter. Converged problems agree across backends.
+    # Iteration of convergence, or the cap for unconverged problems.
     iterations: jax.Array  # (B,) int32
     prim_residual: jax.Array  # (B,)
     dual_residual: jax.Array  # (B,)
@@ -200,9 +120,8 @@ def _rho_pattern(lb, ub, settings: QPSettings):
     return jnp.where(eq, settings.rho_eq_scale, 1.0).astype(lb.dtype)
 
 
-# Finite stand-in for "hard row" in the soft-threshold array: a normal f32
-# (not inf — inf operands route TPU elementwise ops through the microcoded
-# special-value slow path, see ops/pallas/admm_kernel.py).
+# Finite stand-in for "hard row" in the soft-threshold array: a normal f32,
+# so the thr = _HARD / rho quotient never overflows to inf.
 _HARD = 1e20
 
 
@@ -251,161 +170,6 @@ def _ruiz_equilibrate(A, iters: int):
     return D, E
 
 
-def _solve_pallas(
-    As, Ps, qs, lcs, ucs, lxs, uxs, pat_c, pat_x, soft_s, soft_xs, rho0, D, E,
-    factor, M_inv0, x, yc, yx, settings: QPSettings, dt,
-) -> QPSolution:
-    """Chunked fused-kernel path: VMEM-resident iteration chunks with
-    OSQP-style rho adaptation (+ batched refactorization) between chunks."""
-    from .pallas import admm_kernel as pk
-
-    B, m, n = As.shape
-    G = settings.pallas_group
-    # pad the batch to a multiple of the kernel group with done=1 dummies
-    Bp = -(-B // G) * G
-    bpad = Bp - B
-
-    f32 = jnp.float32
-    to32 = lambda a: a.astype(f32)
-
-    def bp_vec(v):  # (B, PAD) zero-padded batch rows
-        return jnp.pad(v, ((0, bpad), (0, 0))) if bpad else v
-
-    def bp_vec_ones(v):
-        if not bpad:
-            return v
-        return jnp.concatenate(
-            [v, jnp.ones((bpad, v.shape[1]), v.dtype)], axis=0
-        )
-
-    def bp_mat(M):
-        return jnp.pad(M, ((0, bpad), (0, 0), (0, 0))) if bpad else M
-
-    if settings.rho_update_every > 0:
-        chunk = settings.rho_update_every
-    else:
-        chunk = settings.max_iter
-    n_chunks = -(-settings.max_iter // chunk)
-
-    # Never let +-inf into VMEM: TPU special-value handling runs the
-    # kernel's elementwise ops through a microcoded slow path (measured
-    # ~200x wall-time blowup for the same iteration count once inf bounds
-    # are resident, long enough to trip the device watchdog and crash the
-    # TPU worker at grid sizes >= 64). A big finite stand-in behaves
-    # identically for the box projection: no iterate ever approaches 1e20.
-    BIG = jnp.float32(1e20)
-    finite = lambda v: jnp.clip(to32(v), -BIG, BIG)
-    base = {
-        "A": bp_mat(pk.pad_mat(to32(As))),
-        "P": bp_vec(pk.pad_vec(to32(Ps))),
-        "q": bp_vec(pk.pad_vec(to32(qs))),
-        "lc": bp_vec(pk.pad_vec(finite(lcs))),
-        "uc": bp_vec(pk.pad_vec(finite(ucs))),
-        "lx": bp_vec(pk.pad_vec(finite(lxs))),
-        "ux": bp_vec(pk.pad_vec(finite(uxs))),
-        "D": bp_vec_ones(pk.pad_vec_ones(to32(D))),
-        "E": bp_vec_ones(pk.pad_vec_ones(to32(E))),
-        "sc": bp_vec_ones(pk.pad_vec_ones(to32(soft_s))),
-        "sx": bp_vec_ones(pk.pad_vec_ones(to32(soft_xs))),
-    }
-    rho_s = rho0
-
-    def operands(rho_s, M_inv):
-        ops = dict(base)
-        ops["M_inv"] = bp_mat(pk.pad_mat(to32(M_inv)))
-        ops["rc"] = bp_vec_ones(pk.pad_vec_ones(to32(rho_s[:, None] * pat_c)))
-        ops["rx"] = bp_vec_ones(pk.pad_vec_ones(to32(rho_s[:, None] * pat_x)))
-        return ops
-
-    done0 = jnp.zeros((Bp, 1), jnp.int32)
-    if bpad:
-        done0 = done0.at[B:].set(1)
-    state = {
-        "x": bp_vec(pk.pad_vec(to32(x))),
-        "zc": bp_vec(
-            pk.pad_vec(to32(jnp.clip(jnp.einsum("bmn,bn->bm", As, x), lcs, ucs)))
-        ),
-        "zx": bp_vec(pk.pad_vec(to32(jnp.clip(x, lxs, uxs)))),
-        "yc": bp_vec(pk.pad_vec(to32(yc))),
-        "yx": bp_vec(pk.pad_vec(to32(yx))),
-        "done": done0,
-    }
-
-    def residual_ratio(xs_, zcs_, zxs_, ycs_, yxs_):
-        Ax = jnp.einsum("bmn,bn->bm", As, xs_)
-        r_prim = jnp.maximum(
-            jnp.max(jnp.abs((Ax - zcs_) / E), axis=-1),
-            jnp.max(jnp.abs(D * (xs_ - zxs_)), axis=-1),
-        )
-        Aty = jnp.einsum("bmn,bm->bn", As, ycs_)
-        r_dual = jnp.max(jnp.abs((Ps * xs_ + qs + Aty + yxs_) / D), axis=-1)
-        scale_p = jnp.maximum(
-            jnp.max(jnp.abs(Ax / E), axis=-1), jnp.max(jnp.abs(zcs_ / E), axis=-1)
-        )
-        scale_d = jnp.maximum(
-            jnp.maximum(
-                jnp.max(jnp.abs(qs / D), axis=-1),
-                jnp.max(jnp.abs(Aty / D), axis=-1),
-            ),
-            jnp.max(jnp.abs(yxs_ / D), axis=-1),
-        )
-        return jnp.sqrt(
-            (r_prim / jnp.maximum(scale_p, 1e-12))
-            / jnp.maximum(r_dual / jnp.maximum(scale_d, 1e-12), 1e-12)
-        )
-
-    M_inv = M_inv0
-    total_used = jnp.zeros(Bp, jnp.int32)
-    for c in range(n_chunks):
-        state, used = pk.admm_pallas_chunk(
-            operands(rho_s, M_inv),
-            state,
-            group=G,
-            chunk_iters=min(chunk, settings.max_iter - c * chunk),
-            check_every=settings.check_every,
-            eps_abs=settings.eps_abs,
-            eps_rel=settings.eps_rel,
-            sigma=settings.sigma,
-            alpha=settings.alpha,
-            mxu_precision=settings.pallas_precision,
-            kkt_refine=settings.kkt_refine,
-        )
-        total_used = total_used + used
-        if c < n_chunks - 1 and settings.rho_update_every > 0:
-            done = state["done"][:B, 0] > 0
-            xs_ = state["x"][:B, :n].astype(dt)
-            ratio = residual_ratio(
-                xs_,
-                state["zc"][:B, :m].astype(dt),
-                state["zx"][:B, :n].astype(dt),
-                state["yc"][:B, :m].astype(dt),
-                state["yx"][:B, :n].astype(dt),
-            )
-            want = ~done & ((ratio > 5.0) | (ratio < 0.2))
-            rho_new = jnp.where(
-                want,
-                jnp.clip(rho_s * ratio, settings.rho_min, settings.rho_max),
-                rho_s,
-            )
-            M_inv = jax.lax.cond(
-                jnp.any(want), lambda _: factor(rho_new), lambda _: M_inv, None
-            )
-            rho_s = rho_new
-
-    # done codes: 1 converged, 2 diverged-frozen (reported unconverged)
-    done = state["done"][:B, 0] == 1
-    zb = jnp.zeros(B, dt)
-    return QPSolution(
-        x=D * state["x"][:B, :n].astype(dt),
-        y_constraints=E * state["yc"][:B, :m].astype(dt),
-        y_box=state["yx"][:B, :n].astype(dt) / D,
-        converged=done,
-        iterations=total_used[:B],
-        prim_residual=zb,
-        dual_residual=zb,
-    )
-
-
 def solve_box_qp(
     P_diag,
     q,
@@ -420,6 +184,7 @@ def solve_box_qp(
     yx0=None,
     soft_c=None,
     soft_x=None,
+    max_iter=None,
 ) -> QPSolution:
     """Solve a batch of box QPs:  min 1/2 x^T P x + q^T x
     s.t. lc <= A x <= uc,  lx <= x <= ux.
@@ -431,15 +196,16 @@ def solve_box_qp(
     as well, so eps_abs/eps_rel retain their reference meaning under
     equilibration.
 
-    soft_c: optional (B, m) per-row l1 penalty weights. Rows with
-    soft_c > 0 are SOFT: their box may be violated at linear cost
-    soft_c[i] per unit (exact l1 elastic, implemented as a prox in the
-    z-update — see :func:`_soft_prox`); rows with 0 stay hard. Soft-row
+    soft_c: optional (B, m) per-row l1 penalty weights, or one (1, m) row
+    broadcast over the batch. Rows with soft_c > 0 are SOFT: their box may
+    be violated at linear cost soft_c[i] per unit (exact l1 elastic,
+    implemented as a prox in the z-update — see :func:`_soft_prox`); rows
+    with 0 stay hard. Soft-row
     duals are bounded by their weight, so primal-infeasible QPs cannot
     diverge through those rows.
 
-    soft_x: optional (B, n) per-VARIABLE l1 penalty weights: the same
-    elastic relaxation applied to the variable box lx <= x <= ux
+    soft_x: optional (B, n) (or (1, n)) per-VARIABLE l1 penalty weights:
+    the same elastic relaxation applied to the variable box lx <= x <= ux
     (SNOPT-style elastic mode on the bound rows). The planner uses it on
     the control/interior-state boxes: a warm start whose defect residual
     cannot be corrected within the pinned endpoints without exceeding the
@@ -450,43 +216,38 @@ def solve_box_qp(
     restores convergence while the exact-penalty property keeps feasible
     solves bitwise-unaffected whenever the weight exceeds the row's
     optimal box dual.
+
+    max_iter: optional iteration cap in place of settings.max_iter. It may
+    be a traced integer, so one compiled solver serves several caps (the
+    SQP's per-step budgets).
     """
     B, m, n = A.shape
     dt = q.dtype
 
     if P_diag.ndim == 3 and settings.backend != "xla":
         raise ValueError(
-            "dense P is only supported on the 'xla' backend; the pallas "
-            "and structured backends exploit diagonal P (the planner's "
+            "dense P is only supported on the 'xla' backend; the "
+            "structured backend exploits diagonal P (the planner's "
             "regularized zero Hessian)."
         )
-    if settings.backend == "pallas" and settings.pallas_precision == "split3":
-        import os as _os
-
-        if not _os.environ.get("MPC_TPU_ALLOW_SPLIT3"):
-            raise ValueError(
-                "pallas_precision='split3' diverges (NaN) on the real "
-                "planner workload on TPU despite passing interpret-mode "
-                "parity tests; it is hard-gated. Set MPC_TPU_ALLOW_SPLIT3=1 "
-                "to experiment anyway."
-            )
-
-    # TPU matmuls default to bf16 passes, which destroys ADMM convergence
-    # (KKT inverse + iteration matvecs need full f32). Force full precision
-    # for everything traced inside the solver.
+    # A float32 matmul at default precision may run in TF32 on the GPU,
+    # which destroys ADMM convergence (the KKT inverse and the iteration
+    # matvecs need full f32). Force full precision for everything traced
+    # inside the solver.
     with jax.default_matmul_precision("highest"):
         return _solve_box_qp_impl(
             P_diag, q, A, lc, uc, lx, ux, settings, x0, yc0, yx0, soft_c,
-            soft_x,
+            soft_x, max_iter,
         )
 
 
 def _solve_box_qp_impl(
     P_diag, q, A, lc, uc, lx, ux, settings, x0, yc0, yx0, soft_c=None,
-    soft_x=None,
+    soft_x=None, max_iter=None,
 ) -> QPSolution:
     B, m, n = A.shape
     dt = q.dtype
+    cap = settings.max_iter if max_iter is None else max_iter
 
     # ---- Ruiz equilibration (scaled problem solved internally) ----
     if settings.ruiz_iters > 0:
@@ -539,9 +300,7 @@ def _solve_box_qp_impl(
             M_chol = jnp.einsum("bki,bkj->bij", Linv, Linv)
             # f32 breakdown guard: at rho_eq_scale=1e3 cond(M) can exceed
             # what Cholesky tolerates in f32 and jnp.linalg.cholesky
-            # silently returns NaN — which the pallas path would carry
-            # straight into VMEM (the special-value slow-path hazard).
-            # Fall back to the LU inverse for those problems (cond keeps
+            # silently returns NaN. Fall back to the LU inverse for those problems (cond keeps
             # the LU cost off the common all-finite path).
             bad = ~jnp.all(jnp.isfinite(M_chol), axis=(1, 2), keepdims=True)
             return jax.lax.cond(
@@ -558,11 +317,6 @@ def _solve_box_qp_impl(
     yc = jnp.zeros((B, m), dt) if yc0 is None else yc0 / E
     yx = jnp.zeros((B, n), dt) if yx0 is None else yx0 * D
 
-    if settings.backend == "pallas":
-        return _solve_pallas(
-            As, Ps, qs, lcs, ucs, lxs, uxs, pat_c, pat_x, soft_s, soft_xs,
-            rho0, D, E, factor, M_inv0, x, yc, yx, settings, dt,
-        )
     zc = jnp.clip(jnp.einsum("bmn,bn->bm", As, x), lcs, ucs)
     zx = jnp.clip(x, lxs, uxs)
 
@@ -625,7 +379,7 @@ def _solve_box_qp_impl(
         x_new = alpha * xt + (1.0 - alpha) * x
         zc_arg = alpha * zt_c + (1.0 - alpha) * zc
         # numerator capped BEFORE the divide so the hard-row quotient can
-        # never overflow f32 to inf (same invariant as the pallas kernels)
+        # never overflow f32 to inf
         zc_new = _soft_prox(
             zc_arg + yc / rc, lcs, ucs, jnp.minimum(soft_s, _HARD * rc) / rc
         )
@@ -678,7 +432,7 @@ def _solve_box_qp_impl(
 
         args = (x, zc, zx, yc, yx, done, iters, rp, rd, rho_s, M_inv)
         x, zc, zx, yc, yx, done, iters, rp, rd, rho_s, M_inv = jax.lax.cond(
-            (k % settings.check_every == 0) | (k >= settings.max_iter),
+            (k % settings.check_every == 0) | (k >= cap),
             check,
             lambda a: a,
             args,
@@ -687,7 +441,7 @@ def _solve_box_qp_impl(
 
     def cond(state):
         *_, done, _, _, _, _, _, k = state
-        return (k < settings.max_iter) & ~jnp.all(done)
+        return (k < cap) & ~jnp.all(done)
 
     zeros_b = jnp.zeros(B, dt)
     state = (
@@ -697,7 +451,7 @@ def _solve_box_qp_impl(
         yc,
         yx,
         jnp.zeros(B, bool),
-        jnp.full(B, settings.max_iter, jnp.int32),
+        jnp.full(B, cap, jnp.int32),
         zeros_b,
         zeros_b,
         rho0,

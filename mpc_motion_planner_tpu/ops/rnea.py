@@ -1,7 +1,7 @@
 """Rigid-body dynamics: RNEA inverse dynamics, mass matrix, energies,
 and analytic-quality derivatives.
 
-TPU-native replacement for the Pinocchio algorithms the reference OCP uses
+Batched replacement for the Pinocchio algorithms the reference OCP uses
 (``rnea``, ``computeRNEADerivatives``, ``crba`` — /root/reference/mpc_solver/
 robot_ocp.hpp:86-141). The recursion runs in link coordinates with
 Featherstone [angular; linear] spatial vectors; the chain length is a
@@ -14,7 +14,7 @@ Matching pinocchio semantics: URDF joint damping/friction are NOT applied
 
 Derivatives are exact: obtained with ``jax.jacfwd`` through the recursion
 (forward-mode over a 21-dim input of a cheap function), which is the
-TPU-native analogue of pinocchio's hand-derived Lie-algebraic partials.
+analogue of pinocchio's hand-derived Lie-algebraic partials.
 Validated against energy-based Lagrangian dynamics and finite differences in
 ``tests/test_rnea.py`` (the reference's only derivative check is the
 ``test_develop/test_rnea_derivatives.cpp`` experiment).
@@ -114,7 +114,7 @@ def rnea(model: RobotModel, q, qdot, qddot) -> jnp.ndarray:
 def rnea_derivatives(model: RobotModel, q, qdot, qddot):
     """Exact partials (dtau/dq, dtau/dqdot, dtau/dqddot).
 
-    The TPU-native equivalent of ``pinocchio::computeRNEADerivatives``
+    The equivalent of ``pinocchio::computeRNEADerivatives``
     (robot_ocp.hpp:118); dtau/dqddot equals the symmetrized CRBA mass matrix
     the reference substitutes at robot_ocp.hpp:121-136.
     """

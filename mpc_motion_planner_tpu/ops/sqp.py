@@ -94,19 +94,15 @@ class SQPSettings:
     box_slack_penalty: float = dataclasses.field(
         default=3.0, metadata={"static": True}
     )
-    # Per-SQP-step ADMM budgets: semicolon-separated exit_schedule
-    # strings, one per SQP iteration (e.g. "300,400;200,300"). SQP step i
-    # solves its QP with QPSettings.exit_schedule replaced by entry
-    # min(i, last) and max_iter replaced by that entry's chunk sum; empty
-    # keeps the single shared QPSettings (reference behavior — polyMPC
-    # uses one solver instance for every SQP iteration). Why this knob
-    # exists: the step-1 QP is dual-warm-started from step 0 on a nearly
-    # unchanged linearization and converges measurably faster (iteration
-    # p50 125 vs 175, p99 500 vs 638 at the ruiz2 production defaults,
-    # experiments/r05_results.jsonl "iters" phase), yet a shared schedule
-    # makes it pay the same 300-iteration warmup chunk across the whole
-    # batch. On non-pallas backends the per-step max_iter still applies
-    # (the schedule itself is a structured_pallas dispatch concept).
+    # Per-SQP-step ADMM budgets: semicolon-separated iteration caps, one
+    # per SQP iteration (e.g. "700;500"). SQP step i solves its QP with
+    # QPSettings.max_iter replaced by entry min(i, last); empty keeps the
+    # single shared QPSettings (reference behavior — polyMPC uses one
+    # solver instance for every SQP iteration). The step-1 QP is
+    # dual-warm-started from step 0 on a nearly unchanged linearization and
+    # converges in fewer iterations (iteration p50 125 vs 175, p99 500 vs
+    # 638 on the chained workload, KERNELS.md), so a smaller step-1 cap
+    # can leave its result unchanged.
     qp_step_schedules: str = dataclasses.field(
         default="", metadata={"static": True}
     )
@@ -123,6 +119,22 @@ class SQPResult:
     qp_iterations: jax.Array  # (B, sqp_iters)
     qp_converged: jax.Array  # (B, sqp_iters) bool
     step_sizes: jax.Array  # (B, sqp_iters)
+
+
+def parse_step_budgets(spec: str):
+    """"700;500" -> [700, 500]: the per-SQP-step ADMM caps of
+    SQPSettings.qp_step_schedules. Raises on anything but positive
+    integers."""
+    caps = []
+    for entry in spec.split(";"):
+        entry = entry.strip()
+        if not entry.isdigit() or int(entry) <= 0:
+            raise ValueError(
+                f"qp_step_schedules must be ';'-separated positive integers, "
+                f"got {spec!r}"
+            )
+        caps.append(int(entry))
+    return caps
 
 
 def hessian_regularization_diag(ocp: TranscribedOCP, batch_shape, dtype, eps):
@@ -153,7 +165,7 @@ def constraint_violation(ocp: TranscribedOCP, bounds: NLPBounds, z):
     """l1 norm of all constraint violations at z (equality defects,
     inequality box, variable box) — polyMPC's constraints_violation."""
     c_eq = jax.vmap(ocp.eq_residual)(z)
-    g = ocp.ineq_residual_batch(z)  # fused kernel on TPU
+    g = ocp.ineq_residual_batch(z)
     v_eq = jnp.sum(jnp.abs(c_eq), axis=-1)
     v_g = jnp.sum(
         jnp.maximum(g - bounds.ub_ineq, 0.0) + jnp.maximum(bounds.lb_ineq - g, 0.0),
@@ -170,12 +182,12 @@ def _line_search(ocp, bounds, z, d, h, mu, settings: SQPSettings,
                  c_eq=None, g=None):
     """Vectorized l1-merit backtracking; returns per-problem alpha (B,).
 
-    Device-cost design (r05, VERDICT r04 #4): the defect residual is
+    Device-cost design: the defect residual is
     BILINEAR in (p, [X; U]), so every candidate's equality violation comes
     from the exact quadratic expansion ocp.eq_residual_quadratic — three
     (B, num_eq) tensors combined elementwise — instead of re-running the
     full defect chain at L x B. Only the genuinely nonlinear per-node
-    constraint rows evaluate for real, as ONE fused-kernel launch over the
+    constraint rows evaluate for real, as one batched evaluation over the
     (L*B)-flat candidate batch. The violation at z itself reuses the SQP
     iteration's linearization residuals (c_eq, g) when given. Semantics are
     identical to evaluating constraint_violation at every candidate
@@ -258,8 +270,9 @@ def sqp_solve(
     'xla' QP backend (dense P). When None (the planner's case, H == 0),
     the regularization reduces to the constant eps diagonal.
     """
-    # Full-precision matmuls throughout (TPU defaults to bf16 passes, which
-    # is not accurate enough for the Jacobian assembly / dynamics sweeps).
+    # Full-precision matmuls throughout (a float32 matmul at default
+    # precision may run in TF32 on the GPU, which is not accurate enough for
+    # the Jacobian assembly / dynamics sweeps).
     with jax.default_matmul_precision("highest"):
         return _sqp_solve_impl(
             ocp, bounds, z0, settings, qp_settings, lam_c0, lam_x0, hessian_fn
@@ -274,22 +287,21 @@ def _sqp_solve_impl(
     n = ocp.num_var
     m = ocp.num_eq + ocp.num_ineq
 
-    z = z0
     lam_c = jnp.zeros((B, m), dt) if lam_c0 is None else lam_c0
     lam_x = jnp.zeros((B, ocp.num_var), dt) if lam_x0 is None else lam_x0
 
-    qp_iters, qp_conv, alphas_log = [], [], []
-
-    lb_var = jnp.broadcast_to(bounds.lb_var, z.shape)
-    ub_var = jnp.broadcast_to(bounds.ub_var, z.shape)
+    lb_var = jnp.broadcast_to(bounds.lb_var, z0.shape)
+    ub_var = jnp.broadcast_to(bounds.ub_var, z0.shape)
     lb_g = jnp.broadcast_to(bounds.lb_ineq, (B, ocp.num_ineq))
     ub_g = jnp.broadcast_to(bounds.ub_ineq, (B, ocp.num_ineq))
 
     # ---- l1 elastic (soft) nonlinear inequality rows (see SQPSettings):
     # equality/defect rows stay hard, every per-node constraint row gets
-    # the slack-free prox relaxation with weight slack_penalty.
+    # the slack-free prox relaxation with weight slack_penalty. Both weight
+    # arrays are one row that broadcasts over the batch: a (B, m) constant
+    # would be constant-folded by the compiler at every batch size.
     if settings.slack_penalty > 0:
-        soft_c = jnp.zeros((B, m), dt).at[:, ocp.num_eq :].set(
+        soft_c = jnp.zeros((1, m), dt).at[:, ocp.num_eq :].set(
             settings.slack_penalty
         )
     else:
@@ -305,44 +317,32 @@ def _sqp_solve_impl(
         wx = wx.at[nodes * nx_ : nodes * (nx_ + nu_)].set(
             settings.box_slack_penalty
         )
-        soft_x = jnp.broadcast_to(wx, (B, ocp.num_var))
+        soft_x = wx[None, :]
     else:
         soft_x = None
 
-    # Per-step QP budgets (SQPSettings.qp_step_schedules): step i swaps in
-    # its own exit_schedule + max_iter; the QPSettings are static jit
-    # fields, so each distinct schedule simply becomes part of that step's
-    # traced solver — the SQP loop below is a Python loop.
-    step_qp_settings = [qp_settings] * settings.max_iter
+    # Per-step QP budgets (SQPSettings.qp_step_schedules): step i's ADMM
+    # loop runs to its own cap, passed to the QP solver as a traced value,
+    # so every SQP step is one iteration of a lax.scan over the caps and
+    # the solve is traced (and compiled) once, not once per step.
     if settings.qp_step_schedules:
-        entries = [
-            e.strip()
-            for e in settings.qp_step_schedules.split(";")
-            if e.strip()
-        ]
-        for i in range(settings.max_iter):
-            sched = entries[min(i, len(entries) - 1)]
-            chunks = [int(c) for c in sched.split(",")]
-            step_qp_settings[i] = dataclasses.replace(
-                qp_settings, exit_schedule=sched, max_iter=sum(chunks)
-            )
-
-    structured = qp_settings.backend in ("structured", "structured_pallas")
-    if qp_settings.backend == "structured_pallas":
-        from .pallas.structured_admm import solve_box_qp_structured_pallas
-
-        structured_solver = solve_box_qp_structured_pallas
+        caps = parse_step_budgets(settings.qp_step_schedules)
     else:
-        structured_solver = solve_box_qp_structured
+        caps = [qp_settings.max_iter]
+    step_caps = jnp.asarray(
+        [caps[min(i, len(caps) - 1)] for i in range(settings.max_iter)],
+        jnp.int32,
+    )
 
-    for step in range(settings.max_iter):
-        qs = step_qp_settings[step]
+    structured = qp_settings.backend == "structured"
+
+    def sqp_step(carry, cap):
+        z, lam_c, lam_x = carry
         # ---- full relinearization at the current iterate ----
         c_eq = jax.vmap(ocp.eq_residual)(z)  # (B, num_eq)
         if structured:
             # matrix-free: A is never materialized (ops/structure.py);
-            # g and the per-node Jacobians come from ONE fused evaluation
-            # (a single Pallas launch on TPU)
+            # g and the per-node Jacobians come from one batched evaluation
             g, J = ocp.linearize_constraints_batch(z)
             sa = build_structured_A(ocp, z, J=J)
         else:
@@ -364,14 +364,16 @@ def _sqp_solve_impl(
         lx = lb_var - z
         ux = ub_var - z
         if structured:
-            qp: QPSolution = structured_solver(
-                ocp, sa, P_diag, h, lc, uc, lx, ux, qs,
+            qp: QPSolution = solve_box_qp_structured(
+                ocp, sa, P_diag, h, lc, uc, lx, ux, qp_settings,
                 yc0=lam_c, yx0=lam_x, soft_c=soft_c, soft_x=soft_x,
+                max_iter=cap,
             )
         else:
             qp = solve_box_qp(
-                P_diag, h, A, lc, uc, lx, ux, qs,
+                P_diag, h, A, lc, uc, lx, ux, qp_settings,
                 yc0=lam_c, yx0=lam_x, soft_c=soft_c, soft_x=soft_x,
+                max_iter=cap,
             )
         d = qp.x
         y_box = qp.y_box
@@ -387,10 +389,11 @@ def _sqp_solve_impl(
         z = z + alpha[:, None] * d
         lam_c = lam_c + alpha[:, None] * (qp.y_constraints - lam_c)
         lam_x = lam_x + alpha[:, None] * (y_box - lam_x)
+        return (z, lam_c, lam_x), (qp.iterations, qp.converged, alpha)
 
-        qp_iters.append(qp.iterations)
-        qp_conv.append(qp.converged)
-        alphas_log.append(alpha)
+    (z, lam_c, lam_x), (qp_iters, qp_conv, alphas) = jax.lax.scan(
+        sqp_step, (z0, lam_c, lam_x), step_caps
+    )
 
     # Project the final iterate onto the variable box: ADMM satisfies the
     # box only to its primal tolerance (~1e-3 * eps), while callers rely on
@@ -403,7 +406,7 @@ def _sqp_solve_impl(
         lam_x=lam_x,
         cost=ocp.cost(z),
         violation=constraint_violation(ocp, bounds, z),
-        qp_iterations=jnp.stack(qp_iters, axis=-1),
-        qp_converged=jnp.stack(qp_conv, axis=-1),
-        step_sizes=jnp.stack(alphas_log, axis=-1),
+        qp_iterations=jnp.moveaxis(qp_iters, 0, -1),
+        qp_converged=jnp.moveaxis(qp_conv, 0, -1),
+        step_sizes=jnp.moveaxis(alphas, 0, -1),
     )

@@ -9,9 +9,8 @@ has batch-SHARED structure (ocp.py:33-41): E_D is the Chebyshev
 differentiation pattern and C_dyn the (linear) dynamics coupling — both
 compile-time constants — while the only per-problem data are the scalar p,
 the dynamics values f_rows (the entries of the d/dp column) and the 19 tiny
-constraint-Jacobian blocks J. Round 1 materialized A densely per problem
-(488 x 400) and burned one MXU row per (1, 512) x (512, 512) matvec at ~1%
-utilization (the round-1 verdict's #1 finding).
+constraint-Jacobian blocks J. The dense backend materializes A per
+problem (488 x 400) and applies it with one matvec per problem.
 
 This module applies A·v and Aᵀ·w WITHOUT materializing A:
 
@@ -22,7 +21,7 @@ This module applies A·v and Aᵀ·w WITHOUT materializing A:
 * J blocks: a per-node (ng, nx+nu) contraction batched over (B, nodes).
 
 Cost per application: ~15k flops/problem vs ~390k for the dense matvec, all
-in ops whose wide axis is the batch — exactly what the MXU/VPU want. The
+in ops whose wide axis is the batch. The
 matrix-free boxADMM/PDHG backend in :mod:`.qp` is built on these.
 
 Reference parity: the operator represents the same linearization polyMPC
@@ -63,7 +62,7 @@ def _static_indices(order: int, num_segments: int):
     """Host-side gather/scatter maps between global nodes and the
     (segment, local-node) grid. Every global node appears in at most two
     segments (boundary nodes are shared), so the segment->node scatter-add
-    is two gathers + one add instead of a TPU scatter."""
+    is two gathers + one add instead of a scatter."""
     K = order + 1
     seg_idx = (
         np.arange(num_segments)[:, None] * order + np.arange(K)[None, :]
@@ -99,7 +98,7 @@ def build_structured_A(ocp, z, J=None) -> StructuredA:
 
     J: optionally the precomputed (B, nodes, ng, nx+nu) per-node
     Jacobians (e.g. from ``ocp.linearize_constraints_batch``, which the
-    SQP shares with the residual evaluation on the fused TPU path)."""
+    SQP shares with the residual evaluation)."""
     X, U, p = ocp.unpack(z)
     seg_idx, *_ = _static_indices(ocp.coll.order, ocp.coll.num_segments)
     f = ocp.dynamics(X, U)  # (B, nodes, nx)

@@ -6,8 +6,9 @@ pure data parallelism over a 1-D mesh — states are sharded over the
 ``batch`` axis, the whole solve partitions cleanly under GSPMD (every op is
 batched elementwise over trajectories apart from cheap scalar reductions in
 the solver loops), and cross-device communication is limited to the
-benchmark metric reductions (psum of violation counts / residual stats),
-which ride ICI.
+benchmark metric reductions (psum of violation counts / residual stats).
+The mesh is 1-D: the cards of one host are joined all to all by NVLink, so
+its shape follows the algorithm alone.
 """
 
 from __future__ import annotations
@@ -37,12 +38,11 @@ def initialize_multihost(
     :func:`make_mesh` builds the global batch mesh; every process runs the
     same program SPMD over its local shard (scale-out semantics per
     SURVEY.md §2.3 — the only cross-host communication is the psum-style
-    metric reductions, which XLA lowers onto DCN/ICI collectives).
+    metric reductions, which XLA lowers onto cross-process collectives).
 
-    On real TPU pods each process autodetects its local chips. For CPU
-    simulation/tests (SURVEY.md §4), pass ``local_device_count`` to give
-    every process that many virtual host devices; cross-process CPU
-    collectives use the gloo backend.
+    This is a CPU test helper (SURVEY.md §4): pass ``local_device_count``
+    to give every process that many virtual host devices; cross-process
+    CPU collectives use the gloo backend.
     """
     if local_device_count is not None:
         flags = os.environ.get("XLA_FLAGS", "")
@@ -111,19 +111,14 @@ def sharded_solve_fn(planner, mesh: Mesh, axis_name: str = BATCH_AXIS):
 
 
 def shard_map_solve_fn(planner, mesh: Mesh, axis_name: str = BATCH_AXIS):
-    """Per-shard dispatch of the FULL solve — the form that covers the fused
-    Pallas backends (``backend='pallas'`` / ``'structured_pallas'``).
+    """Per-shard dispatch of the FULL solve: every device runs the
+    complete planner solve on its local batch shard (the workload is pure
+    data parallelism — zero intra-solve communication), and the aggregate
+    stats are batch-global reductions computed on the sharded outputs
+    outside the shard_map (XLA inserts the collectives, which run over
+    NVLink between the cards of one host).
 
-    GSPMD cannot partition a ``pallas_call`` grid or the host-side
-    lane-major reshapes around it, so the production kernel path scales out
-    with :func:`jax.shard_map` instead: every device runs the complete
-    planner solve on its local batch shard (the workload is pure data
-    parallelism — zero intra-solve communication), and the aggregate stats
-    are batch-global reductions computed on the sharded outputs outside the
-    shard_map (XLA inserts the psum-style collectives over ICI).
-
-    The batch must divide evenly by the mesh size (callers pad; the solver
-    itself pads each local batch to the kernel's lane multiple).
+    The batch must divide evenly by the mesh size (callers pad).
 
     Returns fn(current, target) -> (Solution, stats dict), jitted.
     """

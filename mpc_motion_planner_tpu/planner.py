@@ -1,4 +1,4 @@
-"""Planner facade: the TPU-native ``MotionPlanner``.
+"""Planner facade: the batched ``MotionPlanner``.
 
 Mirrors the public API of the reference planner (/root/reference/mpc_solver/
 motionPlanner.{hpp,cpp}) — margins, current/target state handling,
@@ -23,6 +23,7 @@ from typing import Optional, Tuple
 import jax
 import jax.numpy as jnp
 
+from .config import full_precision
 from .models.panda import TOOL_FRAME, PandaLimits, make_panda_limits, make_panda_model
 from .models.robot import RobotModel
 from .ocp import NLPBounds, TranscribedOCP, assemble_bounds, make_ocp
@@ -76,15 +77,18 @@ class Solution:
         X, U, p = self.ocp.unpack(self.z)
         return X, U, p
 
+    @full_precision
     def x_at(self, t_norm):
         """State at normalized time(s) t in [0,1]: (B, ..., nx)."""
         X, _, _ = self.states()
         return jax.vmap(lambda Xb: interpolate(self.ocp.coll, Xb, t_norm))(X)
 
+    @full_precision
     def u_at(self, t_norm):
         _, U, _ = self.states()
         return jax.vmap(lambda Ub: interpolate(self.ocp.coll, Ub, t_norm))(U)
 
+    @full_precision
     def sample(self, n_points: int):
         """Sample the MPC trajectory at n_points+1 uniform times.
 
@@ -202,6 +206,7 @@ class MotionPlanner:
 
     # ---------------- warm start ----------------
 
+    @full_precision
     def plan_warm_start(
         self,
         current_state,
@@ -228,6 +233,7 @@ class MotionPlanner:
             target_acceleration=target_acceleration,
         )
 
+    @full_precision
     def warm_start_vector(self, traj: JerkLimitedTrajectory):
         """Sample the OTG trajectory at the collocation nodes and pack the
         initial NLP iterate with p0 = OTG duration."""
@@ -263,6 +269,7 @@ class MotionPlanner:
                                  jnp.asarray(final_time))
         return one(position, velocity, acceleration, jnp.asarray(final_time))
 
+    @full_precision
     def warm_start_point(self, traj: JerkLimitedTrajectory, t):
         """Warm-start trajectory state at time t (seconds), with torque
         (get_RK_point, motionPlanner.hpp:130-142)."""
@@ -273,6 +280,7 @@ class MotionPlanner:
             tau = rnea.rnea(self.model, q, v, a)
         return q, v, a, tau
 
+    @full_precision
     def solution_point(self, solution: "Solution", t):
         """MPC trajectory state at time t (seconds), with torque
         (get_MPC_point, motionPlanner.hpp:118-128): t is de-normalized by
@@ -297,6 +305,7 @@ class MotionPlanner:
 
     # ---------------- solve ----------------
 
+    @full_precision
     def solve(
         self,
         current_state,
@@ -343,6 +352,7 @@ class MotionPlanner:
 
     # ---------------- sampling & checks ----------------
 
+    @full_precision
     def sample_random_state(self, key, batch_shape=(), max_rounds: int = 64):
         """Random (position, velocity) with tool-side height rejection
         (motionPlanner.cpp:102-114; the reference rejects on the z of
@@ -399,14 +409,17 @@ class MotionPlanner:
 
     # ---------------- task-space helpers ----------------
 
+    @full_precision
     def forward_velocities(self, q, qdot):
         return kinematics.forward_velocities(self.model, q, qdot, self._tool)
 
+    @full_precision
     def inverse_velocities(self, q, linear_velocity, angular_velocity):
         return kinematics.inverse_velocities(
             self.model, q, linear_velocity, angular_velocity, self._tool
         )
 
+    @full_precision
     def inverse_kinematics(self, rotation, translation, q0=None, key=None, **kw):
         """Damped-LS IK to a tool pose (pandaWrapper.cpp:14-58). Like the
         reference, the start configuration defaults to a random one
@@ -424,6 +437,7 @@ class MotionPlanner:
             self.model, q0, rotation, translation, self._tool, **kw
         )
 
+    @full_precision
     def sample_warm_start(self, traj: JerkLimitedTrajectory, n_points: int):
         """Sample the OTG trajectory at n_points+1 uniform times incl.
         torques (get_ruckig_trajectory, motionPlanner.hpp:74-96)."""

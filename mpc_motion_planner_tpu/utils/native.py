@@ -1,7 +1,9 @@
 """ctypes bindings for the native (C++) runtime components.
 
 The shared library lives in ``native/`` and is built with cmake+ninja (or a
-direct g++ fallback) on first use. Currently exposed:
+direct g++ fallback) on first use, and rebuilt whenever ``native/otg.cpp``
+is newer than it, so the library always comes from the committed source.
+Currently exposed:
 
 * ``otg_plan`` / ``otg_sample``: the C++ jerk-limited OTG — the framework's
   native counterpart to the reference's Ruckig dependency. Used as a
@@ -27,7 +29,8 @@ def _build() -> str:
     build_dir = os.path.join(_NATIVE_DIR, "build")
     os.makedirs(build_dir, exist_ok=True)
     lib_path = os.path.join(build_dir, _LIB_NAME)
-    if os.path.exists(lib_path):
+    src = os.path.join(_NATIVE_DIR, "otg.cpp")
+    if os.path.exists(lib_path) and os.path.getmtime(lib_path) >= os.path.getmtime(src):
         return lib_path
     try:
         subprocess.run(
@@ -40,7 +43,7 @@ def _build() -> str:
         subprocess.run(
             [
                 "g++", "-O3", "-shared", "-fPIC", "-std=c++17",
-                os.path.join(_NATIVE_DIR, "otg.cpp"), "-o", lib_path,
+                src, "-o", lib_path,
             ],
             check=True, capture_output=True,
         )

@@ -235,10 +235,11 @@ def test_optimal_solution_format(tmp_path, planner, small_run):
 
 def test_committed_acceptance_artifact_matches_results_md(planner):
     """RESULTS.md's headline numbers are re-derivable from the committed
-    round-5 acceptance artifact — pins doc/artifact consistency so a
-    regenerated artifact or an analysis-code change cannot silently
-    desynchronize the two. (Artifact: 1000 trajectories at the shipping
-    defaults on v5e, analysis/benchmark_data_r05.txt.gz.)"""
+    acceptance artifact — pins doc/artifact consistency so a regenerated
+    artifact or an analysis-code change cannot silently desynchronize the
+    two. (Artifact: analysis/benchmark_data_r05.txt.gz, a float32 record
+    of solver outputs, not of speed: 1000 trajectories at the shipping
+    defaults, taken on an earlier accelerator.)"""
     import pathlib
 
     from mpc_motion_planner_tpu.bench.analysis import (

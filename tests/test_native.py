@@ -1,5 +1,7 @@
 """Cross-language oracle: the C++ OTG must agree with the JAX OTG."""
 
+import os
+import pathlib
 import shutil
 
 import jax
@@ -71,3 +73,33 @@ def test_native_end_state(native):
     np.testing.assert_allclose(p[0], pf, atol=1e-8)
     np.testing.assert_allclose(v[0], 0, atol=1e-9)
     np.testing.assert_allclose(a[0], 0, atol=1e-9)
+
+
+def _native_copy(tmp_path, monkeypatch):
+    """A copy of native/ in tmp_path, with utils.native pointed at it and
+    a stale placeholder library in its build directory."""
+    from mpc_motion_planner_tpu.utils import native as n
+
+    src = pathlib.Path(n._NATIVE_DIR)
+    dst = tmp_path / "native"
+    shutil.copytree(src, dst, ignore=shutil.ignore_patterns("build"))
+    monkeypatch.setattr(n, "_NATIVE_DIR", str(dst))
+    lib = dst / "build" / n._LIB_NAME
+    lib.parent.mkdir()
+    lib.write_bytes(b"stale")
+    return n, dst / "otg.cpp", lib
+
+
+def test_native_rebuilds_when_source_is_newer(tmp_path, monkeypatch):
+    n, src, lib = _native_copy(tmp_path, monkeypatch)
+    os.utime(lib, (1_000_000, 1_000_000))  # library older than otg.cpp
+    assert n._build() == str(lib)
+    assert lib.read_bytes() != b"stale"
+    assert lib.stat().st_mtime >= src.stat().st_mtime
+
+
+def test_native_keeps_library_built_from_current_source(tmp_path, monkeypatch):
+    n, src, lib = _native_copy(tmp_path, monkeypatch)
+    os.utime(src, (1_000_000, 1_000_000))  # source older than the library
+    assert n._build() == str(lib)
+    assert lib.read_bytes() == b"stale"

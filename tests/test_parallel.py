@@ -52,7 +52,7 @@ def test_sharded_solve_matches_single_device(planner):
 def test_sharded_structured_backend_matches_single_device():
     """The PRODUCTION backend (matrix-free structured ADMM) partitions
     under GSPMD over the batch mesh and reproduces single-device results —
-    the round-1 gap was that only the dense XLA path ever ran sharded."""
+    the dense XLA path is not the only one that runs sharded."""
     planner = MotionPlanner(
         margins=Margins(0.8, 0.8, 0.6, 0.9, 0.1),
         sqp_settings=SQPSettings(max_iter=1),
@@ -74,27 +74,22 @@ def test_sharded_structured_backend_matches_single_device():
     )
 
 
-def test_shard_map_pallas_backend_matches_single_device():
-    """The fused structured Pallas kernel (interpret mode off-TPU) cannot
-    partition under GSPMD; shard_map dispatches the whole solve per shard.
-    Sharded results must match the single-device run (round-1 gap: the
-    production kernel path never ran under a mesh)."""
+def test_shard_map_structured_backend_matches_single_device():
+    """shard_map dispatches the whole shipping (structured) solve per
+    shard; sharded results must match the single-device run."""
     planner = MotionPlanner(
         margins=Margins(0.8, 0.8, 0.6, 0.9, 0.1),
         sqp_settings=SQPSettings(max_iter=1),
         qp_settings=QPSettings(
             max_iter=50, check_every=10, rho_update_every=0,
-            backend="structured_pallas",
+            backend="structured",
         ),
     )
     cur, tgt = _states(planner, 8)
-    # The reference must be JITTED: eager execution compiles the f32
-    # kernel ops one-by-one while jit lets XLA fuse/FMA-contract them,
-    # perturbing iterates at the ulp level — which 50 mid-flight ADMM
-    # iterations amplify to ~1e-2 (root-caused in round 3: eager-vs-jit
-    # max|dz| 9.1e-3, jit-vs-shard_map max|dz| 0.0; batch slicing B=8 vs
-    # B=2 is also bitwise identical, so results do NOT depend on
-    # batch/lane composition).
+    # The reference must be JITTED: eager execution compiles the ops
+    # one-by-one while jit lets XLA fuse/FMA-contract them, perturbing
+    # iterates at the ulp level, which 50 mid-flight ADMM iterations
+    # amplify.
     sol_ref_z = jax.jit(lambda c, t: planner.solve(c, t).z)(cur, tgt)
     sol_ref_viol = jax.jit(lambda c, t: planner.solve(c, t).violation)(cur, tgt)
 
@@ -102,8 +97,7 @@ def test_shard_map_pallas_backend_matches_single_device():
     cur_s, tgt_s = shard_batch(mesh, (cur, tgt))
     step = shard_map_solve_fn(planner, mesh)
     sol, stats = step(cur_s, tgt_s)
-    # per-problem solves are independent of the lane grouping; jit-to-jit
-    # agreement is exact on CPU interpret mode
+    # per-problem solves are independent of the batch grouping
     np.testing.assert_allclose(
         np.asarray(sol.z), np.asarray(sol_ref_z), atol=1e-6
     )

@@ -114,7 +114,7 @@ def test_sample_random_state(planner):
 
 
 def test_float32_solve_matches_float64(planner, solved):
-    """The TPU path runs f32; the solve must stay usable at f32."""
+    """The shipping path runs f32; the solve must stay usable at f32."""
     cur, tgt, sol64 = solved
     p32 = MotionPlanner(margins=Margins(0.9, 0.9, 0.5, 0.9, 0.1), dtype=jnp.float32)
     sol32 = p32.solve(cur.astype(jnp.float32), tgt.astype(jnp.float32))
@@ -199,7 +199,7 @@ def test_hot_restart_receding_horizon(planner, solved):
     then an excellent guess and every hot solve converges with good
     quality and a shrinking time-to-go. (Re-seeding across a CHANGED
     target is measured WORSE than a fresh OTG warm start —
-    experiments/r05_results.jsonl `hot` phase, negative-result arm — so
+    KERNELS.md, hot restarts, negative-result arm — so
     this receding pattern is the supported hot path.)"""
     cur, tgt, sol = solved
     t_prev = float(sol.final_time[0])
@@ -225,17 +225,16 @@ def test_hot_restart_receding_horizon(planner, solved):
 
 def test_per_step_qp_schedules(planner, solved):
     """SQPSettings.qp_step_schedules gives each SQP iteration its own
-    ADMM budget: step i's QP runs with max_iter = that entry's chunk sum
-    (and, on the structured_pallas backend, that exit_schedule). The
-    step-1 QP is dual-warm-started on a nearly unchanged linearization
-    and needs measurably fewer iterations (r05 `iters` phase: p50 125 vs
-    175), so a shorter step-1 budget must not change the solution on an
-    easy problem — and the budget cap must actually bind."""
+    ADMM budget: step i's QP runs with max_iter = that entry. The step-1
+    QP is dual-warm-started on a nearly unchanged linearization and needs
+    measurably fewer iterations (p50 125 vs 175 on the chained workload,
+    KERNELS.md), so a shorter step-1 budget must not change the solution
+    on an easy problem — and the budget cap must actually bind."""
     cur, tgt, sol = solved
     stepped = MotionPlanner(
         margins=planner.margins,
         qp_settings=planner.qp_settings,
-        sqp_settings=SQPSettings(qp_step_schedules="300,400;200,300"),
+        sqp_settings=SQPSettings(qp_step_schedules="700;500"),
     )
     sol2 = stepped.solve(cur, tgt)
     # the easy problem converges inside both budgets -> same solution
@@ -248,7 +247,7 @@ def test_per_step_qp_schedules(planner, solved):
     capped = MotionPlanner(
         margins=planner.margins,
         qp_settings=planner.qp_settings,
-        sqp_settings=SQPSettings(qp_step_schedules="300,400;50"),
+        sqp_settings=SQPSettings(qp_step_schedules="700;50"),
     )
     it = np.asarray(capped.solve(cur, tgt).qp_iterations)
     assert it.shape[-1] == 2

@@ -277,66 +277,9 @@ def test_soft_box_inactive_when_feasible():
     )
 
 
-def test_split3_is_hard_gated(monkeypatch):
-    """split3 diverges on real TPU workloads (CLAUDE.md): enabling it must
-    raise unless the experiment escape hatch is set."""
-    monkeypatch.delenv("MPC_TPU_ALLOW_SPLIT3", raising=False)
-    P = jnp.ones((1, 4))
-    q = jnp.zeros((1, 4))
-    A = jnp.ones((1, 2, 4))
-    lc = uc = jnp.zeros((1, 2))
-    lx, ux = -jnp.ones((1, 4)), jnp.ones((1, 4))
-    with pytest.raises(ValueError, match="split3"):
-        solve_box_qp(
-            P, q, A, lc, uc, lx, ux,
-            QPSettings(backend="pallas", pallas_precision="split3"),
-        )
-
-
-@pytest.mark.parametrize("group", [1, 2, 3])
-@pytest.mark.parametrize("precision", ["highest", "split4"])
-def test_pallas_backend_matches_xla(group, precision):
-    """The fused-kernel backend (interpret mode off-TPU) must agree with the
-    XLA path for every kernel group size; B=5 with G=2/3 also exercises the
-    done=1 batch padding. bf16x4's ~2^-24 matvec error floor is f32-like on
-    these small well-conditioned problems (it still diverges on the real
-    TPU workload — see QPSettings.pallas_precision — so it stays
-    experimental) and gets a slightly looser tolerance than highest."""
-    rng = np.random.default_rng(0)
-    B, n, m = 5, 24, 18
-    P = rng.uniform(0.1, 1.0, (B, n))
-    q = rng.standard_normal((B, n))
-    A = rng.standard_normal((B, m, n))
-    lc = rng.uniform(-2, -0.5, (B, m))
-    uc = rng.uniform(0.5, 2, (B, m))
-    lc[:, :4] = uc[:, :4] = 0.3  # equality rows
-    lx, ux = np.full((B, n), -3.0), np.full((B, n), 3.0)
-    args = (P, q, A, lc, uc, lx, ux)
-
-    ref = solve_box_qp(
-        *map(jnp.asarray, args), QPSettings(backend="xla", max_iter=2000)
-    )
-    f32 = lambda a: jnp.asarray(a, jnp.float32)
-    eps = 1e-3 if precision == "highest" else 4e-3
-    sol = solve_box_qp(
-        *map(f32, args),
-        QPSettings(
-            backend="pallas",
-            pallas_group=group,
-            pallas_precision=precision,
-            max_iter=2000,
-            eps_abs=eps,
-            eps_rel=eps,
-        ),
-    )
-    assert bool(jnp.all(sol.converged))
-    atol = {"split3": 6e-2, "split4": 1e-2, "highest": 5e-3}[precision]
-    np.testing.assert_allclose(np.asarray(sol.x), np.asarray(ref.x), atol=atol)
-
-
 def test_kkt_refine_matches_plain():
     """kkt_refine=1 (iterative refinement on the x-update solve) must reach
-    the same solution in both backends — it only sharpens the linear solve."""
+    the same solution — it only sharpens the linear solve."""
     rng = np.random.default_rng(11)
     B, n, m = 4, 16, 12
     P = rng.uniform(0.1, 1.0, (B, n))
@@ -349,18 +292,14 @@ def test_kkt_refine_matches_plain():
     args = tuple(map(jnp.asarray, (P, q, A, lc, uc, lx, ux)))
 
     ref = solve_box_qp(*args, QPSettings(max_iter=2000))
-    for backend in ("xla", "pallas"):
-        sol = solve_box_qp(
-            *args,
-            QPSettings(backend=backend, max_iter=2000, kkt_refine=1),
-        )
-        assert bool(jnp.all(sol.converged)), backend
-        np.testing.assert_allclose(np.asarray(sol.x), np.asarray(ref.x), atol=5e-3)
+    sol = solve_box_qp(*args, QPSettings(max_iter=2000, kkt_refine=1))
+    assert bool(jnp.all(sol.converged))
+    np.testing.assert_allclose(np.asarray(sol.x), np.asarray(ref.x), atol=5e-3)
 
 
 def test_cholesky_factor_matches_lu():
     """kkt_factor="cholesky" must reproduce the LU-inverse path (M is SPD
-    by construction), across both XLA and pallas backends."""
+    by construction)."""
     rng = np.random.default_rng(7)
     B, n, m = 4, 16, 12
     P = rng.uniform(0.1, 1.0, (B, n))
@@ -373,15 +312,26 @@ def test_cholesky_factor_matches_lu():
     args = tuple(map(jnp.asarray, (P, q, A, lc, uc, lx, ux)))
 
     ref = solve_box_qp(*args, QPSettings(max_iter=2000))
-    for backend in ("xla", "pallas"):
-        sol = solve_box_qp(
-            *args,
-            QPSettings(backend=backend, max_iter=2000, kkt_factor="cholesky"),
-        )
-        assert bool(jnp.all(sol.converged)), backend
-        np.testing.assert_allclose(
-            np.asarray(sol.x), np.asarray(ref.x), atol=5e-3
-        )
+    sol = solve_box_qp(*args, QPSettings(max_iter=2000, kkt_factor="cholesky"))
+    assert bool(jnp.all(sol.converged))
+    np.testing.assert_allclose(np.asarray(sol.x), np.asarray(ref.x), atol=5e-3)
+
+
+@pytest.mark.parametrize(
+    "spec, caps", [("700", [700]), ("700;500", [700, 500]), (" 300 ; 50 ", [300, 50])]
+)
+def test_parse_step_budgets(spec, caps):
+    from mpc_motion_planner_tpu.ops.sqp import parse_step_budgets
+
+    assert parse_step_budgets(spec) == caps
+
+
+@pytest.mark.parametrize("spec", ["300,400;200", "700;", "0", "-5", "abc"])
+def test_parse_step_budgets_rejects(spec):
+    from mpc_motion_planner_tpu.ops.sqp import parse_step_budgets
+
+    with pytest.raises(ValueError, match="qp_step_schedules"):
+        parse_step_budgets(spec)
 
 
 def test_dense_P_matches_diagonal_path():
@@ -442,7 +392,7 @@ def test_dense_P_rejected_off_xla():
         solve_box_qp(
             P, q, A, -jnp.ones((2, 1)), jnp.ones((2, 1)),
             -jnp.ones((2, 4)), jnp.ones((2, 4)),
-            QPSettings(backend="pallas"),
+            QPSettings(backend="structured"),
         )
 
 

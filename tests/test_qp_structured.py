@@ -282,287 +282,3 @@ def test_structured_backend_solves_planner_qps_to_tolerance():
     assert (viol * hard)[conv].max() < 5e-3
     duals = np.abs(np.asarray(got.y_constraints))
     assert (duals * ~hard)[conv].max() <= 10.0 + 1e-3
-
-
-def test_banded_factor_matches_group_factor(ocp):
-    """Node-level block-banded Cholesky (the fused kernel's factor form)
-    solves the same system as the group-tridiagonal factorization."""
-    B = 3
-    z = _random_z(ocp, jax.random.PRNGKey(4), B)
-    sa = structure.build_structured_A(ocp, z)
-    n = ocp.num_var
-    m = ocp.num_eq + ocp.num_ineq
-    rng = np.random.default_rng(13)
-    D = jnp.asarray(rng.uniform(0.5, 2.0, (B, n)))
-    w = jnp.asarray(rng.uniform(0.1, 3.0, (B, m)))
-    sig = jnp.asarray(rng.uniform(0.5, 1.5, (B, n)))
-    rhs = jnp.asarray(rng.standard_normal((B, n)))
-
-    K, nx = ocp.coll.order + 1, ocp.nx
-    w_eq = w[:, : ocp.num_eq].reshape(B, -1, K, nx)
-    w_g = w[:, ocp.num_eq :].reshape(B, ocp.num_nodes, -1)
-    Mband, p_col, m_pp = qs.assemble_banded_M(ocp, sa, w_eq, w_g, D, sig)
-    fac_g = qs.factor_arrow(Mband, p_col, m_pp, ocp.coll.order)
-    x_g = qs.solve_arrow(ocp, fac_g, ocp.coll.order, rhs)
-    fac_b = qs.factor_banded(Mband, p_col, m_pp, ocp.coll.order)
-    x_b = qs.solve_arrow_banded(ocp, fac_b, rhs)
-    np.testing.assert_allclose(
-        np.asarray(x_b), np.asarray(x_g), rtol=1e-9, atol=1e-11
-    )
-
-
-@pytest.mark.parametrize("soft", [False, True])
-def test_structured_pallas_kernel_matches_xla_backend(soft):
-    """The fused lane-major kernel (interpret mode off-TPU) tracks the XLA
-    structured backend on real planner QPs: identical convergence flags,
-    iterates within f32 factorization-rounding drift."""
-    from mpc_motion_planner_tpu.ops.pallas.structured_admm import (
-        solve_box_qp_structured_pallas,
-    )
-
-    ocp, sa, A, P, h, lc, uc, lx, ux, soft_c = _planner_qp_data(B=4, soft=soft)
-    # the kernel is float32-only: compare both backends at f32
-    f32 = jnp.float32
-    sa = structure.StructuredA(
-        p=sa.p.astype(f32), f_rows=sa.f_rows.astype(f32), J=sa.J.astype(f32)
-    )
-    P, h, lc, uc, lx, ux = (a.astype(f32) for a in (P, h, lc, uc, lx, ux))
-    settings = QPSettings(max_iter=700, rho_update_every=0)
-    ref = qs.solve_box_qp_structured(
-        ocp, sa, P, h, lc, uc, lx, ux, settings, soft_c=soft_c
-    )
-    got = solve_box_qp_structured_pallas(
-        ocp, sa, P, h, lc, uc, lx, ux, settings, soft_c=soft_c, lanes=8
-    )
-    assert bool(jnp.all(got.converged == ref.converged))
-    conv = np.asarray(ref.converged)
-    if conv.any():
-        # converged problems satisfy the same tolerance on HARD rows
-        Ax = np.einsum("bmn,bn->bm", np.asarray(A), np.asarray(got.x))
-        viol = np.maximum(Ax - np.asarray(uc), 0.0) + np.maximum(
-            np.asarray(lc) - Ax, 0.0
-        )
-        hard = (
-            np.asarray(soft_c) == 0
-            if soft_c is not None
-            else np.ones(viol.shape, bool)
-        )
-        assert (viol * hard)[conv].max() < 5e-3
-    np.testing.assert_allclose(
-        np.asarray(got.iterations), np.asarray(ref.iterations), atol=26
-    )
-
-
-def test_structured_pallas_kernel_matches_xla_with_soft_box():
-    """soft_x parity for the fused kernel (interpret mode off-TPU)."""
-    from mpc_motion_planner_tpu.ops.pallas.structured_admm import (
-        solve_box_qp_structured_pallas,
-    )
-
-    ocp, sa, A, P, h, lc, uc, lx, ux, soft_c = _planner_qp_data(B=4, soft=True)
-    f32 = jnp.float32
-    sa = structure.StructuredA(
-        p=sa.p.astype(f32), f_rows=sa.f_rows.astype(f32), J=sa.J.astype(f32)
-    )
-    P, h, lc, uc, lx, ux = (a.astype(f32) for a in (P, h, lc, uc, lx, ux))
-    soft_x = _planner_soft_x(ocp, 4, dt=f32)
-    settings = QPSettings(max_iter=700, rho_update_every=0)
-    ref = qs.solve_box_qp_structured(
-        ocp, sa, P, h, lc, uc, lx, ux, settings, soft_c=soft_c, soft_x=soft_x
-    )
-    got = solve_box_qp_structured_pallas(
-        ocp, sa, P, h, lc, uc, lx, ux, settings, soft_c=soft_c,
-        soft_x=soft_x, lanes=8,
-    )
-    assert bool(jnp.all(got.converged == ref.converged))
-    conv = np.asarray(ref.converged)
-    soft_rows = np.asarray(soft_x) > 0
-    assert np.abs(np.asarray(got.y_box))[soft_rows].max() <= 10.0 + 1e-3
-    if conv.any():
-        x = np.asarray(got.x)
-        viol = np.maximum(x - np.asarray(ux), 0.0) + np.maximum(
-            np.asarray(lx) - x, 0.0
-        )
-        assert (viol * ~soft_rows)[conv].max() < 5e-3
-    np.testing.assert_allclose(
-        np.asarray(got.iterations), np.asarray(ref.iterations), atol=26
-    )
-
-
-def test_structured_pallas_early_exit_matches_single_dispatch():
-    """exit_every chunked dispatch with inter-chunk compaction (the
-    early-exit production speedup) returns exactly the single-dispatch
-    results: permutation does not change per-lane math, and chunk
-    boundaries at multiples of check_every coincide with scheduled
-    residual checks."""
-    from mpc_motion_planner_tpu.ops.pallas.structured_admm import (
-        solve_box_qp_structured_pallas,
-    )
-
-    ocp, sa, A, P, h, lc, uc, lx, ux, soft_c = _planner_qp_data(B=5, soft=True)
-    f32 = jnp.float32
-    sa = structure.StructuredA(
-        p=sa.p.astype(f32), f_rows=sa.f_rows.astype(f32), J=sa.J.astype(f32)
-    )
-    P, h, lc, uc, lx, ux = (a.astype(f32) for a in (P, h, lc, uc, lx, ux))
-    # lanes=2 < B: grid of 3 programs (one padded), compaction active
-    ref = solve_box_qp_structured_pallas(
-        ocp, sa, P, h, lc, uc, lx, ux,
-        QPSettings(max_iter=300, rho_update_every=0, exit_every=0),
-        soft_c=soft_c, lanes=2,
-    )
-    got = solve_box_qp_structured_pallas(
-        ocp, sa, P, h, lc, uc, lx, ux,
-        QPSettings(max_iter=300, rho_update_every=0, exit_every=100),
-        soft_c=soft_c, lanes=2,
-    )
-    # warmup schedule (one late compaction boundary, the production
-    # shape): chunks [100, 200] must also match exactly
-    got_w = solve_box_qp_structured_pallas(
-        ocp, sa, P, h, lc, uc, lx, ux,
-        QPSettings(
-            max_iter=300, rho_update_every=0, exit_every=200,
-            exit_warmup=100,
-        ),
-        soft_c=soft_c, lanes=2,
-    )
-    np.testing.assert_array_equal(
-        np.asarray(got_w.converged), np.asarray(ref.converged)
-    )
-    np.testing.assert_allclose(
-        np.asarray(got_w.x), np.asarray(ref.x), rtol=1e-6, atol=1e-6
-    )
-    np.testing.assert_array_equal(
-        np.asarray(got.converged), np.asarray(ref.converged)
-    )
-    np.testing.assert_array_equal(
-        np.asarray(got.iterations), np.asarray(ref.iterations)
-    )
-    np.testing.assert_allclose(
-        np.asarray(got.x), np.asarray(ref.x), rtol=1e-6, atol=1e-6
-    )
-    np.testing.assert_allclose(
-        np.asarray(got.y_constraints), np.asarray(ref.y_constraints),
-        rtol=1e-6, atol=1e-6,
-    )
-    np.testing.assert_allclose(
-        np.asarray(got.prim_residual), np.asarray(ref.prim_residual),
-        rtol=1e-6, atol=1e-9,
-    )
-
-
-def test_pallas_factor_matches_xla(ocp):
-    """The lane-major Pallas banded-Cholesky factorization (interpret mode
-    off-TPU) matches qp_structured.factor_banded on real planner KKT
-    systems — this is the production TPU factor path (the in-solve code
-    falls back to the XLA factorization off-TPU for test-suite speed)."""
-    from mpc_motion_planner_tpu.ops.pallas.banded_factor import (
-        factor_banded_pallas,
-    )
-
-    B = 3
-    z = _random_z(ocp, jax.random.PRNGKey(6), B)
-    sa = structure.build_structured_A(ocp, z)
-    n = ocp.num_var
-    m = ocp.num_eq + ocp.num_ineq
-    rng = np.random.default_rng(21)
-    D = jnp.asarray(rng.uniform(0.5, 2.0, (B, n)))
-    w = jnp.asarray(rng.uniform(0.1, 3.0, (B, m)))
-    sig = jnp.asarray(rng.uniform(0.5, 1.5, (B, n)))
-    K, nx = ocp.coll.order + 1, ocp.nx
-    w_eq = w[:, : ocp.num_eq].reshape(B, -1, K, nx)
-    w_g = w[:, ocp.num_eq :].reshape(B, ocp.num_nodes, -1)
-    Mband, p_col, m_pp = qs.assemble_banded_M(ocp, sa, w_eq, w_g, D, sig)
-    ref = qs.factor_banded(Mband, p_col, m_pp, ocp.coll.order)
-    fac, ok = factor_banded_pallas(Mband, p_col, m_pp, ocp.coll.order, lanes=4)
-    assert bool(jnp.all(ok))
-    # kernel is f32; ref here is f64 — agreement to f32 rounding
-    np.testing.assert_allclose(
-        np.asarray(fac["Ldi"]), np.asarray(ref["Ldi"]), rtol=2e-4, atol=1e-4
-    )
-    np.testing.assert_allclose(
-        np.asarray(fac["Lsub_t"]),
-        np.moveaxis(np.asarray(ref["Lsub"]), 2, 1),
-        rtol=2e-3, atol=2e-3,
-    )
-    np.testing.assert_allclose(
-        np.asarray(fac["u"]), np.asarray(ref["u"]), rtol=2e-3, atol=1e-3
-    )
-    np.testing.assert_allclose(
-        np.asarray(fac["s"]), np.asarray(ref["s"]), rtol=1e-3
-    )
-    # breakdown detection: an indefinite system flags ok=False, not NaN
-    Mbad = Mband.at[:, 0, 0, 0, 0].set(-1.0)
-    fac2, ok2 = factor_banded_pallas(Mbad, p_col, m_pp, ocp.coll.order, lanes=4)
-    assert not bool(jnp.any(ok2))
-    assert bool(jnp.all(jnp.isfinite(fac2["Ldi"])))
-
-
-def test_structured_pallas_batch_padding():
-    """B not a multiple of `lanes`: dummies are dropped, results match the
-    unpadded run."""
-    from mpc_motion_planner_tpu.ops.pallas.structured_admm import (
-        solve_box_qp_structured_pallas,
-    )
-
-    ocp, sa, A, P, h, lc, uc, lx, ux, soft_c = _planner_qp_data(B=3, soft=True)
-    settings = QPSettings(max_iter=100, rho_update_every=0)
-    a = solve_box_qp_structured_pallas(
-        ocp, sa, P, h, lc, uc, lx, ux, settings, soft_c=soft_c, lanes=8
-    )
-    b = solve_box_qp_structured_pallas(
-        ocp, sa, P, h, lc, uc, lx, ux, settings, soft_c=soft_c, lanes=4
-    )
-    # unconverged f32 iterates accumulate reassociation noise over the 100
-    # iterations (lane-width-dependent reduction tiling) — agreement is
-    # up to that drift, not bitwise
-    np.testing.assert_allclose(
-        np.asarray(a.x), np.asarray(b.x), rtol=0, atol=5e-3
-    )
-    assert a.x.shape == (3, ocp.num_var)
-
-
-def test_structured_pallas_adaptive_rho_matches_xla_backend():
-    """Adaptive rho on the fused kernel (chunked dispatch with host-side
-    refactorization between launches) tracks the structured XLA backend's
-    adaptive path: same rho-update rule at the same iterations (chunk
-    boundaries coincide with the XLA path's k % rho_update_every checks
-    when check_every divides rho_update_every)."""
-    from mpc_motion_planner_tpu.ops.pallas.structured_admm import (
-        solve_box_qp_structured_pallas,
-    )
-
-    ocp, sa, A, P, h, lc, uc, lx, ux, soft_c = _planner_qp_data(B=4, soft=True)
-    f32 = jnp.float32
-    sa = structure.StructuredA(
-        p=sa.p.astype(f32), f_rows=sa.f_rows.astype(f32), J=sa.J.astype(f32)
-    )
-    P, h, lc, uc, lx, ux = (a.astype(f32) for a in (P, h, lc, uc, lx, ux))
-    settings = QPSettings(
-        max_iter=300, check_every=25, rho_update_every=100, kkt_refine=1
-    )
-    ref = qs.solve_box_qp_structured(
-        ocp, sa, P, h, lc, uc, lx, ux, settings, soft_c=soft_c
-    )
-    got = solve_box_qp_structured_pallas(
-        ocp, sa, P, h, lc, uc, lx, ux, settings, soft_c=soft_c, lanes=4
-    )
-    assert bool(jnp.all(got.converged == ref.converged))
-    conv = np.asarray(ref.converged)
-    if conv.any():
-        # converged problems satisfy the same tolerance on HARD rows (the
-        # same acceptance as the fixed-rho parity test above: element-wise
-        # iterate comparison is meaningless across f32-kernel vs f64-XLA
-        # once the discrete rho-update decision (ratio > 5) can fall on
-        # different sides of the threshold)
-        Ax = np.einsum("bmn,bn->bm", np.asarray(A), np.asarray(got.x))
-        viol = np.maximum(Ax - np.asarray(uc), 0.0) + np.maximum(
-            np.asarray(lc) - Ax, 0.0
-        )
-        hard = np.asarray(soft_c) == 0
-        assert (viol * hard)[conv].max() < 5e-3
-    # iteration counts agree to one check window (the kernel checks lag
-    # chunk-relative)
-    np.testing.assert_allclose(
-        np.asarray(got.iterations), np.asarray(ref.iterations), atol=26
-    )

@@ -138,7 +138,7 @@ def test_rnea_batched_vmap(model):
 
 
 def test_float32_accuracy(model):
-    """The TPU bench path runs f32; torques must stay accurate to ~1e-4
+    """The shipping path runs f32; torques must stay accurate to ~1e-4
     relative (torque scale is tens of Nm, tolerance budget is 1e-2)."""
     q, v, a = _rand_state(6)
     m32 = model.astype(jnp.float32)
